@@ -1,11 +1,11 @@
-"""hydra_pspec_tpu — TPU-native 21cm delay power spectrum inference.
+"""hydra_pspec_tpu — 21cm delay power spectrum inference in JAX.
 
-A from-scratch JAX/XLA/Pallas rebuild of the capabilities of
-HydraRadio/hydra-pspec (reference: /root/reference): per-baseline Gibbs
+A from-scratch JAX/XLA rebuild of the capabilities of
+HydraRadio/hydra-pspec (the reference): per-baseline Gibbs
 sampling of the EoR delay power spectrum jointly with a linear foreground
 model under RFI flagging, plus the LSSA / OQE / DPSS estimators.
 
-Design (TPU-first, not a port):
+Design (not a port):
   * The sampler state is the bandpower vector ``ps``; the frequency-frequency
     covariance, its square root and inverse are *analytic* transforms
     ``S = F^H diag(ps/n^2) F`` (reference recomputes them with

@@ -5,6 +5,9 @@ provenance artifacts), executing on the JAX device mesh instead of MPI.
 Usage:
     python -m hydra_pspec_tpu.cli.run --config test_data/config.yaml [flags]
 
+Reading ``.uvh5`` files needs ``h5py`` and ``--config`` YAML files need
+``pyyaml``; both are imported only where those formats are read.
+
 Differences from the reference by design:
   * no mpirun — one process per host, devices via jax; multi-host runs use
     --num_processes/--process_id/--coordinator (jax.distributed) and each
@@ -23,6 +26,7 @@ from pathlib import Path
 
 import numpy as np
 
+from .. import device
 from ..utils.config import RunConfig, resolve_per_baseline
 from ..utils import provenance, uvh5 as uv
 from ..utils.io import add_mtime_to_filepath
@@ -32,7 +36,7 @@ from ..runner import BaselineJob, run_baselines, gelman_rubin
 
 def build_parser():
     p = argparse.ArgumentParser(
-        description="TPU-native hydra-pspec driver (config-compatible)."
+        description="JAX hydra-pspec driver (config-compatible)."
     )
     p.add_argument("--config", type=str, help="YAML config (reference format)")
     p.add_argument("file_paths", nargs="*", help="uvh5 visibility file(s)")
@@ -81,16 +85,11 @@ def load_config(argv=None):
 
 
 def setup_precision(cfg):
+    """x64 (and with it the complex parity engine) on the CPU; the float32
+    real engine on an accelerator (device.select_precision)."""
     import jax
 
-    precision = cfg.precision
-    if precision == "auto":
-        # x64 (and with it the complex parity engine) only where the
-        # backend supports f64 — on TPU the f32 engines are the
-        # production path and x64 would select complex dtypes the
-        # hardware cannot run.
-        precision = "x32" if jax.default_backend() == "tpu" else "x64"
-    if precision == "x64":
+    if device.select_precision(cfg.precision) == "x64":
         jax.config.update("jax_enable_x64", True)
 
 
@@ -193,8 +192,7 @@ def build_prior(cfg: RunConfig, nfreqs: int) -> np.ndarray:
 
 def _gather_per_baseline(local, jobs, n_baselines, num_processes):
     """Gather per-baseline values (a scalar or a fixed-width 1D array per
-    baseline) from every process — the TPU-native equivalent of the
-    reference's ``comm.gather(write_timings)`` (run-hydra-pspec.py:557),
+    baseline) from every process — the equivalent of the reference's ``comm.gather(write_timings)`` (run-hydra-pspec.py:557),
     via ``multihost_utils.process_allgather`` over padded fixed-shape
     buffers (ragged rank blocks pad with NaN/-1 sentinels). Returns a list
     with one ``[(bl_str, value), ...]`` entry per rank."""
@@ -229,6 +227,7 @@ def _gather_per_baseline(local, jobs, n_baselines, num_processes):
 def main(argv=None):
     t_total0 = time.perf_counter()
     cfg, args = load_config(argv)
+    device.setup_compile_cache()
 
     if args.num_processes > 1:
         from ..parallel.mesh import initialize_distributed
@@ -283,8 +282,6 @@ def main(argv=None):
         dtype=None,
         engine=cfg.engine,
         solver=cfg.solver,
-        warm_ns=cfg.warm_ns,
-        drift_max=cfg.drift_max,
         checkpoint_niter=cfg.checkpoint_Niter,
         resume=cfg.resume,
         run_dir=out_dir,
@@ -358,6 +355,7 @@ def main(argv=None):
             barrier=t_barrier,
             total=t_total,
             write_data=write_data,
+            engine=timings["engine"],
         )
         provenance.write_resources_json(out_dir)
         if cfg.verbose:

@@ -66,7 +66,7 @@ def dpss_fit_modes(d, w, freqs, cov, nmodes=10, alpha=1.0, taper=None):
 
 def dpss_fit_modes_rp(d, w, freqs, cov, nmodes=10, alpha=1.0, taper=None):
     """Real-pair twin of :func:`dpss_fit_modes` — no complex dtypes, so it
-    runs on TPU backends without complex support (the reference's
+    runs at float32 on the device (the reference's
     optimizer loop is CPU-only, hydra_pspec/dpss.py:78-89). ``d`` and
     ``cov`` are ``ops.cplx.C`` pairs; returns the same
     ``(dpss_modes, amps)`` with interleaved re/im coefficients."""

@@ -11,7 +11,7 @@ with preconditioned CG, where S is the current signal covariance,
 Sh = sqrtm(S), Ni the flag-masked inverse noise, Nih = sqrtm(Ni), and F the
 foreground mode matrix. A is *constant across the Ntimes right-hand sides*.
 
-TPU-native formulation used here: substitute s = Sh u (signal whitening).
+Formulation used here: substitute s = Sh u (signal whitening).
 Left-multiplying the first block row by Sh^{-1} gives the Hermitian
 positive-definite system
 
@@ -153,7 +153,7 @@ def gcr_solve(
 
     # Jacobi (diagonal) rescaling: the bandpowers span many orders of
     # magnitude, so equilibrate before the Cholesky factorization. Exact in
-    # exact arithmetic; essential for the complex64 TPU path.
+    # exact arithmetic; essential at complex64.
     d = jnp.sqrt(jnp.clip(jnp.diagonal(m).real, jnp.finfo(ps.dtype).tiny, None))
     dinv = (1.0 / d).astype(dtype)
     m_scaled = m * (dinv[:, None] * dinv[None, :])

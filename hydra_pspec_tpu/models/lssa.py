@@ -85,7 +85,7 @@ def lssa_fit_modes(d, freqs, invcov=None, fit_amp_phase=True, tau=None, taper=No
 def lssa_fit_modes_rp(d: C, freqs, invcov: C = None, fit_amp_phase=True,
                       tau=None, taper=None):
     """Real-pair twin of :func:`lssa_fit_modes` — no complex dtypes
-    anywhere, so it runs on TPU backends without complex support
+    anywhere, so it runs at float32 on the device
     (reference estimators are CPU-only, hydra_pspec/lssa.py:95; this is
     the on-device path). ``d``/``invcov`` are ``ops.cplx.C`` pairs.
 

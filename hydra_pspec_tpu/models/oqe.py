@@ -9,7 +9,7 @@ O(s^2) traces (oqe.py:43-66), normalizations (oqe.py:69-84) and error bars
 ``M_Fhalf`` raise ``NameError`` (missing ``os``/``time``/``sp`` imports) —
 rebuilt here working by construction.
 
-TPU-native identities (no Q matrices are ever materialized; everything is
+Identities used (no Q matrices are ever materialized; everything is
 an FFT because ``m_tau[k] = exp(-2 pi i k tau / s)`` is a DFT row):
 
   * ``x^H Rbar Q_t R x  = conj(fft(R^T x)[t]) * fft(R x)[t]``
@@ -177,8 +177,8 @@ def getqs(Vis, R, verbose=False):
     return qs, Fm, MB, MA
 
 
-# --- real-pair tier (no complex dtypes: runs on TPU backends without ----
-# --- complex support; pinned against the x64 complex tier in tests) -----
+# --- real-pair tier (no complex dtypes: float32 real arithmetic only; ---
+# --- pinned against the x64 complex tier in tests) -----------------------
 
 def _dft_mat_rp(s: int, dtype=jnp.float32) -> C:
     """Unnormalized DFT operator ``F[t, k] = exp(-2 pi i t k / s)`` as a

@@ -163,7 +163,7 @@ def run_chain_tflags(
     return jax.lax.scan(body, ps0, jnp.arange(niter))
 
 
-# --- real-pair (TPU) engine ---------------------------------------------
+# --- real-pair engine ---------------------------------------------------
 
 class TimeGroupReal(NamedTuple):
     ops: rgibbs.RChainOperators
@@ -201,7 +201,7 @@ def gibbs_step_tflags_real(
     keyed per row on ``sids`` (global stream ids, default arange(B)) so the
     draws are batch-composition-invariant: batching same-flag-signature
     baselines together yields bit-identical chains to per-baseline runs
-    (same guarantee as rgibbs.gibbs_step / the megachain kernel).
+    (same guarantee as rgibbs.gibbs_step).
 
     ``igt_total``: inverse-gamma CDF table built at alpha + 1 =
     Ntimes_TOTAL for the pooled prior-bin draws. The per-group operator

@@ -5,10 +5,10 @@ Semantics match the reference's centered DFT convention
 ``fftshift(fft(ifftshift(x)))``. The delay axis is always the *last* axis
 and is fftshifted so the monopole (delay 0) sits at index ``n // 2``.
 
-On TPU, the matrix form is used where a dense frequency-frequency operator
-must be assembled for the GCR system (the matrices are ~128x128 and live on
-the MXU); everywhere a transform is merely *applied* to data we use the FFT
-form (``cfft``) which XLA lowers to its native FFT.
+The matrix form is used where a dense frequency-frequency operator must be
+assembled for the GCR system (the matrices are ~128x128); everywhere a
+transform is merely *applied* to data we use the FFT form (``cfft``),
+which XLA lowers to its native FFT.
 """
 from functools import partial
 

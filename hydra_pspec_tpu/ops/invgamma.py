@@ -33,7 +33,7 @@ def invgamma_cdf(x, alpha, beta, iters=None):
     """CDF of InverseGamma(alpha, scale=beta):
     ``P(X <= x) = Q(alpha, beta / x)`` (upper regularized gamma).
     Uses the fixed-trip-count implementation — jax.scipy's gammaincc is a
-    data-dependent while_loop that dominated TPU iteration time. ``iters``:
+    data-dependent while_loop (see ops/special.py). ``iters``:
     static trip-count pair for alpha > ~2000 (ops.special.iters_for_shape)."""
     return gammaincc_fixed(alpha, beta / x, iters=iters)
 
@@ -80,17 +80,15 @@ def truncated_invgamma_sample(u, alpha, beta, lo, hi, ngrid: int = _NGRID,
 
 class InvGammaTable(NamedTuple):
     """Tabulated regularized upper gamma ``Q(alpha, y)`` on a log-spaced
-    ``y`` grid — the TPU fast path for truncated inverse-gamma draws.
+    ``y`` grid — the fast path for truncated inverse-gamma draws.
 
     The shape parameter is a *chain constant* (alpha + 1 = Ntimes,
     pspec.py:104-123), so the entire CDF family the sampler ever evaluates
     is the one-dimensional function ``P(X <= x) = Q(alpha, beta / x)``
     with only ``beta`` changing per iteration. A 4096-point table built
     once per chain (host-side, float64 scipy) turns each draw into two
-    table lookups and one inverse interpolation — microseconds on the VPU,
-    versus ~16 ms/iteration for iterative gammaincc evaluation under scan
-    (measured on v5e: XLA loops pay per-step overhead that dwarfs the
-    arithmetic)."""
+    table lookups and one inverse interpolation, where an iterative
+    gammaincc evaluation under scan is a loop of dependent steps."""
 
     log_y: jax.Array   # (size,) increasing
     q: jax.Array       # (size,) Q(alpha, y), decreasing in y
@@ -203,7 +201,7 @@ def sample_bandpowers_from_beta(key, beta, ntimes, prior, prior_idx=None,
                                 table=None):
     """Bandpower conditional draw from the sufficient statistic
     ``beta_k = sum_t |sk[t, k]|^2`` — shared by the complex and real-pair
-    (TPU) execution engines.
+    execution engines.
 
     ``prior_idx`` (optional, static length): indices of the bins that can
     carry a prior. When given, the grid-inversion work runs only on those
@@ -222,7 +220,7 @@ def sample_bandpowers_from_beta(key, beta, ntimes, prior, prior_idx=None,
 
     k_gamma, k_u = jax.random.split(key)
     # Unbounded: x = beta / Gamma(alpha, 1). beta may carry leading batch
-    # axes (the batch-first TPU engine). alpha = ntimes - 1 is an integer,
+    # axes (the batch-first real engine). alpha = ntimes - 1 is an integer,
     # so Gamma(alpha, 1) = -sum of alpha log-uniforms EXACTLY — three dense
     # ops instead of jax.random.gamma's rejection sampler (a
     # data-dependent while_loop that costs ~ms on this backend). Falls

@@ -92,7 +92,7 @@ def cholesky_solve(m: jax.Array, b: jax.Array, jitter: float = 0.0):
 
     ``m``: (..., n, n) Hermitian PD; ``b``: (..., n, k). Returns (..., n, k).
     ``jitter`` adds ``jitter * mean(diag)`` to the diagonal — used on the
-    f32 TPU path to absorb roundoff in near-semidefinite foreground blocks.
+    f32 path to absorb roundoff in near-semidefinite foreground blocks.
     """
     n = m.shape[-1]
     if jitter:

@@ -1,12 +1,10 @@
-"""Fixed-trip-count special functions for TPU.
+"""Fixed-trip-count special functions.
 
 ``jax.scipy.special.gammaincc`` lowers to a data-dependent ``while_loop``;
-under vmap every lane waits for the slowest, and at the Gibbs sampler's
-parameter values (shape ~ Ntimes ~ 200, arguments spanning the prior grid)
-it dominated the whole iteration (measured ~120 ms/iter at 100 baselines on
-v5e vs <1 ms for all the linear algebra). This implementation uses the
-classic series / continued-fraction split with a *static* iteration count —
-a dense, branch-free ``fori_loop`` the VPU chews through in microseconds.
+under vmap every lane waits for the slowest, at the Gibbs sampler's
+parameter values (shape ~ Ntimes ~ 200, arguments spanning the prior grid).
+This implementation uses the classic series / continued-fraction split
+with a *static* iteration count — a dense, branch-free ``fori_loop``.
 
 Accuracy: both branches converge in O(sqrt(a)) iterations near the x ~ a
 transition, so the *default* static counts (256 / 128) give ~1e-6 relative

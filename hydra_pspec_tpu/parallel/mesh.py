@@ -101,7 +101,7 @@ def global_to_host_local(arr, batch_axis: int = 0):
 def initialize_distributed(coordinator: Optional[str] = None,
                            num_processes: Optional[int] = None,
                            process_id: Optional[int] = None):
-    """Multi-host bootstrap: ``jax.distributed.initialize`` (the TPU-native
+    """Multi-host bootstrap: ``jax.distributed.initialize`` (the
     replacement for the reference's MPI_COMM_WORLD setup,
     run-hydra-pspec.py:26-31). No-op for single-process runs."""
     if num_processes is None or num_processes <= 1:

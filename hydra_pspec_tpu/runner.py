@@ -4,9 +4,9 @@ The reference distributes baselines over MPI ranks and times over forked
 processes (run-hydra-pspec.py:483, pspec.py:287). Here the (baseline x
 chain) product is one batch axis, executed by one of two engines:
 
-  * ``engine="real"`` (TPU production): the batch-first real-pair engine
-    (models/rgibbs.py) whose hot solve is a single fused Pallas kernel for
-    the whole batch;
+  * ``engine="real"`` (float32 production): the batch-first real-pair
+    engine (models/rgibbs.py), whose hot solve is one batched XLA
+    factorisation for the whole batch;
   * ``engine="complex"`` (CPU / x64 parity, dense noise models): the
     complex engine (models/gibbs.py) vmapped over stacked chain operators.
 
@@ -25,8 +25,8 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from .models import gcr, gibbs, mega, megachain, rgibbs
-from .ops import cplx
+from . import device
+from .models import gcr, gibbs, rgibbs
 from .parallel import mesh as pmesh
 from .parallel import partition as ppart
 from .utils import io as hio
@@ -67,8 +67,6 @@ class RunResult:
 # operator-tree fields shared across the batch (replicated on the mesh)
 _SHARED_FIELDS = {
     "real": ("f", "igt"),
-    "mega": ("f_re", "f_im", "igt"),
-    "megachain": ("f_re", "f_im", "igt"),
     "complex": ("fourier_op",),
 }
 
@@ -80,23 +78,9 @@ def _split_ops(ops_b, engine):
     return body, shared
 
 
-def _max_tflag_groups(jobs):
-    """Largest number of distinct flag-pattern time groups over the jobs'
-    ``flags_tf`` arrays (0 when none carries time-dependent flags). The
-    grouped megachain kernel supports <= 8 groups per flag signature
-    (models/megachain.build_tflags_mega_setup pads G to a power of two)."""
-    n = 0
-    for j in jobs:
-        if j.flags_tf is not None:
-            f = np.asarray(j.flags_tf, dtype=bool)
-            n = max(n, len(np.unique(f, axis=0)))
-    return n
-
-
 def _initial_ps_host(S_initial, nfreqs):
-    """ps-state from an initial covariance, host-side numpy (the TPU
-    backend has no complex dtypes; see models/gibbs.initial_ps for the
-    convention)."""
+    """ps-state from an initial covariance, host-side numpy (see
+    models/gibbs.initial_ps for the convention)."""
     S0 = np.asarray(S_initial)
     if S0.ndim == 1:
         return np.clip(S0.real, 0.0, None)
@@ -104,23 +88,6 @@ def _initial_ps_host(S_initial, nfreqs):
     F = np.exp(-2j * np.pi * np.outer(i, i) / nfreqs)
     ps = np.diagonal(F @ S0 @ F.conj().T).real / nfreqs**2 * nfreqs**2
     return np.clip(ps, 0.0, None)
-
-
-def select_engine(engine: str = "auto") -> str:
-    """x64 mode selects the complex parity engine. On a real TPU backend,
-    auto picks the megachain engine (the max-throughput path; run_baselines
-    falls back to mega/real automatically for features the kernel does not
-    cover). Elsewhere the real-pair f32 engine runs. An explicit
-    ``engine="megachain"`` works on any backend: off-TPU the kernel runs
-    in interpret mode with per-chain external randomness (the core PRNG is
-    hardware-only)."""
-    if engine != "auto":
-        return engine
-    if jax.config.jax_enable_x64:
-        return "complex"
-    if jax.default_backend() == "tpu":
-        return "megachain"
-    return "real"
 
 
 def run_baselines(
@@ -137,8 +104,6 @@ def run_baselines(
     dtype=None,
     engine: str = "auto",
     solver: str = "auto",
-    warm_ns: int = 3,
-    drift_max: float = 0.6,
     use_mesh: bool = True,
     mesh_devices: Optional[Sequence] = None,
     checkpoint: bool = True,
@@ -157,12 +122,6 @@ def run_baselines(
 
     ``checkpoint_niter``: checkpoint cadence in iterations (rounded up to
     whole ``write_niter`` chunks); 0 = checkpoint every chunk.
-    ``warm_ns``/``drift_max``: megachain engine only — Newton-Schulz
-    refresh steps for the VMEM-carried system inverse and the maximum
-    relative bandpower move for which the warm start is trusted (sized by
-    scripts/probe_ns_drift.py: NS seed delta <= 0.26 when the gate passes
-    at 0.6, solve error ~ delta^(2^ns) then squared once more by the
-    exact refinement; 0 disables — exact rebuild every iteration).
     ``run_dir``: where checkpoint.npz lives (defaults to the parent of the
     first baseline's out_dir — the run's results directory).
 
@@ -172,49 +131,18 @@ def run_baselines(
     (for PRNG streams), ``n_global_baselines`` the global total. Local
     blocks are padded to equal per-process slot counts and assembled into
     globally-sharded arrays via jax.make_array_from_process_local_data —
-    the TPU-native comm.scatter. No collectives run during sampling; each
+    the equivalent of the reference's comm.scatter. No collectives run during sampling; each
     process writes only its own baselines' outputs."""
     if map_estimate:
         niter = 1
         write_niter = 1
-    engine = select_engine(engine)
-    if engine == "megachain":
-        # max-throughput engine: K iterations per Pallas program with
-        # per-chain batch-composition-invariant PRNG streams — runs in
-        # every distribution configuration (mesh-sharded, multi-process).
-        # Only features outside the kernel fall back to mega.
-        n_prior_bins = int(
-            np.count_nonzero(np.any(np.asarray(ps_prior) > 0, axis=0)))
-        if (map_estimate
-                or n_prior_bins > megachain.MAX_PRIOR_BINS
-                or jobs[0].d.shape[0] > 1025
-                or _max_tflag_groups(jobs) > 8):
-            engine = "mega"
-    if engine in ("mega", "megachain") and (
-        map_estimate
-        or any(np.ndim(j.Ninv) == 2
-               and np.abs(np.asarray(j.Ninv)
-                          - np.diag(np.diag(np.asarray(j.Ninv)))).max() > 0
-               for j in jobs)
-    ):
-        # the mega kernels cover the production sampling path; MAP mode
-        # and dense noise run through the general real-pair engine
-        engine = "real"
-    if engine == "mega" and any(
-            j.flags_tf is not None for j in jobs):
-        # the single-step mega kernel has no grouped time-flags mode —
-        # route it to the real-pair grouped path. The megachain engine
-        # runs tflags jobs DIRECTLY (grouped kernel: chain-major rows per
-        # flag-pattern time group, pooled bandpower conditional — see
-        # models/megachain.TflagsMegaSetup); jobs with > 8 time groups
-        # were demoted above.
-        engine = "real"
+    engine = device.select_engine(engine)
+    device.check_solver(solver)
     if any(j.flags_tf is not None for j in jobs):
         return _run_baselines_tflags(
             jobs, ps_prior, niter, seed=seed, nchains=nchains,
             write_niter=write_niter, map_estimate=map_estimate,
             store_cr=store_cr, jitter=jitter, engine=engine, solver=solver,
-            warm_ns=warm_ns, drift_max=drift_max,
             verbose=verbose, global_baseline_ids=global_baseline_ids,
             use_mesh=use_mesh, mesh_devices=mesh_devices,
             run_dir=run_dir, checkpoint=checkpoint, resume=resume,
@@ -236,23 +164,7 @@ def run_baselines(
     ps0_list = [
         _initial_ps_host(job.S_initial, nfreqs) for job in jobs
     ]
-    prior_host = np.asarray(ps_prior, dtype=np.float64)
-    mega_dims = None
-    if engine in ("mega", "megachain"):
-        ops_list = [
-            rgibbs.build_chain_operators(job.d, job.w, job.fgmodes, job.Ninv)
-            for job in jobs
-        ]
-        stacked = rgibbs.stack_chain_operators([ops_list[ib] for ib, _ in meta])
-        ops_b, mega_dims = mega.from_chain_operators(stacked)
-        ps_b = mega.pad_ps(
-            jnp.asarray(np.stack([ps0_list[ib] for ib, _ in meta]),
-                        dtype=jnp.float32),
-            mega_dims,
-        )
-        prior = jnp.zeros((2, mega_dims.n), dtype=jnp.float32).at[
-            :, : mega_dims.nfreqs].set(prior.astype(jnp.float32))
-    elif engine == "real":
+    if engine == "real":
         ops_list = [
             rgibbs.build_chain_operators(job.d, job.w, job.fgmodes, job.Ninv)
             for job in jobs
@@ -277,7 +189,7 @@ def run_baselines(
         ps_b = jnp.asarray(np.stack([ps0_list[ib] for ib, _ in meta]))
 
     # PRNG streams are keyed by the *global* baseline index so multi-process
-    # runs reproduce the single-process chains exactly (complex engine).
+    # runs reproduce the single-process chains exactly.
     gids = (list(global_baseline_ids) if global_baseline_ids is not None
             else list(range(nbl)))
     keys_b = jnp.stack(
@@ -286,15 +198,11 @@ def run_baselines(
             for ib, ic in meta
         ]
     )
-    # Global chain stream ids for the mega engines: each (baseline, chain)
+    # Global chain stream ids for the real engine: each (baseline, chain)
     # pair's randomness depends only on this id, never on batch position.
     sid_b = jnp.asarray(
         np.asarray([gids[ib] * nchains + ic for ib, ic in meta],
                    dtype=np.int32))
-    # InvGammaTable rows must be captured host-side BEFORE global sharding
-    # (a globally-replicated array is not host-addressable per process).
-    mega_tables = (megachain.make_chain_tables(ops_b)
-                   if engine == "megachain" else None)
 
     # --- pad + shard the batch over the device mesh ---------------------
     # The mesh always engages: a batch not divisible by the device count is
@@ -370,29 +278,7 @@ def run_baselines(
     t_scatter = time.perf_counter() - t_scatter0
 
     # --- per-chunk step functions ---------------------------------------
-    if engine == "megachain":
-        # per-chain streams from the in-kernel core PRNG on TPU; external
-        # per-chain draws elsewhere (interpret mode stubs the PRNG)
-        mc_inkernel = jax.default_backend() == "tpu"
-
-        def run_chunk(chunk_key_base, ps, n):
-            return megachain.run_chain_megachain(
-                chunk_key_base, ops_b, mega_dims, ps, prior_host, n,
-                sids=sid_b, mesh=dev_mesh, inkernel_rng=mc_inkernel,
-                tables=mega_tables, store_cr=store_cr, chunk=n,
-                warm_ns=warm_ns, drift_max=drift_max,
-            )
-        # outputs: (niter, B, ...) — scan-major
-        batch_axis = 1
-    elif engine == "mega":
-        def run_chunk(chunk_key_base, ps, n):
-            return mega.run_chain_mega_jit(
-                chunk_key_base, ops_b, mega_dims, ps, prior, n,
-                store_cr=store_cr, prior_idx=prior_idx_j, sids=sid_b,
-            )
-        # outputs: (niter, B, ...) — scan-major
-        batch_axis = 1
-    elif engine == "real":
+    if engine == "real":
         def run_chunk(chunk_key_base, ps, n):
             # one key per chunk; rgibbs folds per-iteration internally
             return rgibbs.run_chain_jit(
@@ -443,16 +329,12 @@ def run_baselines(
             if prefix is not None:
                 start_iter = ck["iteration"]
                 ckps = jnp.asarray(ck["ps"], dtype=ps_b.dtype)
-                if engine in ("mega", "megachain"):
-                    ckps = mega.pad_ps(ckps, mega_dims)
                 # pad to this PROCESS's slot count (ps_b is the padded
                 # GLOBAL batch in a multi-process run while the checkpoint
                 # holds only the local n_real rows — r2 bug)
                 npad = (local_pad if multiproc
                         else ps_b.shape[0] - n_real)
                 if npad:
-                    # batch-pad at the CURRENT freq width (mega engines
-                    # are already freq-padded to mega_dims.n here)
                     ckps = jnp.concatenate(
                         [ckps,
                          jnp.broadcast_to(ckps[:1],
@@ -533,8 +415,7 @@ def run_baselines(
                 hio.save_checkpoint(
                     run_dir,
                     iteration=done_ck,
-                    # padded engines store the true-width state
-                    ps=ps_host[:n_real, :nfreqs],
+                    ps=ps_host[:n_real],
                     key_data=jax.random.key_data(base_key),
                     extra={"niter": niter, "engine": engine,
                            "nchains": nchains},
@@ -554,7 +435,7 @@ def run_baselines(
         profiling = chunk_idx == profile_chunk
         if profiling:
             jax.profiler.start_trace(str(profile_dir))
-        if engine in ("real", "mega", "megachain"):
+        if engine == "real":
             chunk_key = jax.random.fold_in(base_key, 1_000_000 + done)
             ps_b, samples = run_chunk(chunk_key, ps_b, n)
         else:
@@ -623,7 +504,7 @@ def _host(a, batch_axis):
 
 def _to_host(samples, engine, store_cr, batch_axis, n_real):
     h = lambda a: _host(a, batch_axis)
-    if engine in ("real", "mega", "megachain"):
+    if engine == "real":
         cr = (h(samples.signal_cr.re) + 1j * h(samples.signal_cr.im)
               if store_cr else None)
         fga = (h(samples.fg_amps.re) + 1j * h(samples.fg_amps.im)
@@ -775,7 +656,6 @@ def _collect(jobs, meta, host_chunks, batch_axis, nchains, store_cr, nfreqs,
 def _run_tflags_real_batched(jobs, flags_of, prior64, prior_idx_j, niter,
                              base_key, *, nchains, write_niter,
                              map_estimate, store_cr, jitter, solver,
-                             engine="real", warm_ns=0, drift_max=0.6,
                              verbose=False, global_baseline_ids=None,
                              use_mesh=True, mesh_devices=None,
                              run_dir=None, checkpoint=True, resume=False,
@@ -787,16 +667,6 @@ def _run_tflags_real_batched(jobs, flags_of, prior64, prior_idx_j, niter,
     sid = ib * nchains + ic — so results are bit-identical whether
     baselines run together or one at a time (tested in
     tests/test_tflags.py).
-
-    ``engine="megachain"`` runs each signature through the grouped
-    megachain kernel instead of the per-iteration real-pair step: the
-    signature's stacked time-group operators are interleaved into
-    chain-major (chain, group) rows (models/megachain.build_tflags_mega_setup),
-    K iterations execute per Pallas program with in-kernel per-chain PRNG
-    streams on TPU (row streams sid*G+g for omegas, chain streams sid for
-    the pooled bandpower conditional), and samples come back per CHAIN
-    with time rows reassembled — the measured ~5.5x real-engine tflags
-    demotion cost (scripts/probe_tflags_cost.py) eliminated.
 
     Multi-process runs execute each process's local block on its LOCAL
     devices only: tflags signature groups can differ per process, so a
@@ -864,8 +734,7 @@ def _run_tflags_real_batched(jobs, flags_of, prior64, prior_idx_j, niter,
         # pad the CHAIN batch to the shard count (same pad + shard_batch
         # contract as the plain path: dummy rows broadcast from row 0 and
         # dropped on the host; sids keep the dummy rows' streams harmless
-        # copies of row 0's). Chain-whole padding keeps the grouped
-        # kernel's G-row blocks shard-aligned.
+        # copies of row 0's).
         pad = pmesh.pad_batch(n_rows, nsh) - n_rows if mesh_on else 0
         if pad:
             def _pad(x):
@@ -883,104 +752,40 @@ def _run_tflags_real_batched(jobs, flags_of, prior64, prior_idx_j, niter,
             ps_host0 = np.concatenate(
                 [ps_host0, np.repeat(ps_host0[:1], pad, axis=0)])
 
-        if engine == "megachain":
-            # grouped-kernel execution: interleave the signature's stacked
-            # time-group operators into chain-major (chain, group) rows and
-            # run K iterations per Pallas program. Row PRNG streams (omegas)
-            # are sid*G + g; the pooled bandpower conditional draws from the
-            # chain stream sid — both composition-invariant in the global
-            # (baseline, chain) id.
-            setup = megachain.build_tflags_mega_setup(groups)
-            mops, mdims, group_times, group_idx = setup
-            G = len(group_times)
-            mc_tables = megachain.make_chain_tables(mops)
-            ps_state = jnp.repeat(
-                mega.pad_ps(jnp.asarray(ps_host0), mdims), G, axis=0)
-            sids_row = jnp.asarray(
-                np.repeat(sid_host, G).astype(np.int32) * G
-                + np.tile(np.arange(G, dtype=np.int32), len(sid_host)))
-            sidc_rows = jnp.asarray(np.repeat(sid_host, G))
-            if mesh_on:
-                body, shared = _split_ops(mops, "megachain")
-                body = pmesh.shard_batch(body, dev_mesh)
-                rep = pmesh.replicated_sharding(dev_mesh)
-                shared = jax.tree.map(
-                    lambda x: jax.device_put(x, rep), shared)
-                mops = body._replace(**shared)
-                mc_tables = jax.tree.map(
-                    lambda x: jax.device_put(x, rep), mc_tables)
-                ps_state = pmesh.shard_batch(ps_state, dev_mesh)
-                sids_row = pmesh.shard_batch(sids_row, dev_mesh)
-                sidc_rows = pmesh.shard_batch(sidc_rows, dev_mesh)
-            mc_inkernel = jax.default_backend() == "tpu"
+        # pooled-conditional CDF table at alpha + 1 = TOTAL times (each
+        # group's own igt carries its group's alpha — wrong shape for
+        # the pooled prior-bin draw; see tflags.gibbs_step_tflags_real)
+        from .ops.invgamma import make_invgamma_table
 
-            def chunk_fn(key, ps, n):
-                return megachain.run_chain_megachain(
-                    key, mops, mdims, ps, prior64, n,
-                    sids=sids_row, sidc=sidc_rows, mesh=dev_mesh,
-                    inkernel_rng=mc_inkernel, tables=mc_tables,
-                    store_cr=store_cr, chunk=n,
-                    warm_ns=warm_ns, drift_max=drift_max,
-                    group_times=group_times, group_idx=group_idx,
-                )
+        igt_tot = make_invgamma_table(
+            int(sum(int(g.idx.size) for g in groups)))
+        sids = jnp.asarray(sid_host)
+        ps_state = jnp.asarray(ps_host0)
+        if mesh_on:
+            rep = pmesh.replicated_sharding(dev_mesh)
+            groups = [
+                g._replace(ops=pmesh.shard_batch(
+                    g.ops._replace(f=None, igt=None), dev_mesh
+                )._replace(
+                    f=jax.device_put(g.ops.f, rep),
+                    igt=jax.tree.map(
+                        lambda x: jax.device_put(x, rep), g.ops.igt),
+                ))
+                for g in groups
+            ]
+            ps_state = pmesh.shard_batch(ps_state, dev_mesh)
+            sids = pmesh.shard_batch(sids, dev_mesh)
+            igt_tot = jax.tree.map(
+                lambda x: jax.device_put(x, rep), igt_tot)
 
-            def save_ps(ps):
-                # chain continuation state sits at the group-0 rows
-                return _host(ps, 0)[::G][:n_rows, :nfreqs]
-
-            def load_ck(ckps):
-                x = mega.pad_ps(
-                    jnp.asarray(ckps, dtype=jnp.float32), mdims)
-                if pad:
-                    x = jnp.concatenate(
-                        [x, jnp.broadcast_to(x[:1], (pad, x.shape[1]))], 0)
-                x = jnp.repeat(x, G, axis=0)
-                return jax.device_put(x, ps_state.sharding)
-        else:
-            # pooled-conditional CDF table at alpha + 1 = TOTAL times (each
-            # group's own igt carries its group's alpha — wrong shape for
-            # the pooled prior-bin draw; see tflags.gibbs_step_tflags_real)
-            from .ops.invgamma import make_invgamma_table
-
-            igt_tot = make_invgamma_table(
-                int(sum(int(g.idx.size) for g in groups)))
-            sids = jnp.asarray(sid_host)
-            ps_state = jnp.asarray(ps_host0)
-            if mesh_on:
-                rep = pmesh.replicated_sharding(dev_mesh)
-                groups = [
-                    g._replace(ops=pmesh.shard_batch(
-                        g.ops._replace(f=None, igt=None), dev_mesh
-                    )._replace(
-                        f=jax.device_put(g.ops.f, rep),
-                        igt=jax.tree.map(
-                            lambda x: jax.device_put(x, rep), g.ops.igt),
-                    ))
-                    for g in groups
-                ]
-                ps_state = pmesh.shard_batch(ps_state, dev_mesh)
-                sids = pmesh.shard_batch(sids, dev_mesh)
-                igt_tot = jax.tree.map(
-                    lambda x: jax.device_put(x, rep), igt_tot)
-
-            @partial(jax.jit, static_argnames=("n",))
-            def chunk_fn(key, ps, n, _groups=groups, _sids=sids,
-                         _igt=igt_tot):
-                return tflags.run_chain_tflags_real(
-                    key, _groups, ps, prior_j, n, map_estimate=map_estimate,
-                    jitter=jitter, store_cr=store_cr, prior_idx=prior_idx_j,
-                    solver=solver, sids=_sids, igt_total=_igt,
-                )
-
-            def save_ps(ps):
-                return _host(ps, 0)[:n_rows]
-
-            def load_ck(ckps):
-                x = jnp.asarray(ckps, dtype=jnp.float32)
-                if pad:
-                    x = jnp.concatenate(
-                        [x, jnp.broadcast_to(x[:1], (pad, nfreqs))], 0)
-                return jax.device_put(x, ps_state.sharding)
+        @partial(jax.jit, static_argnames=("n",))
+        def chunk_fn(key, ps, n, _groups=groups, _sids=sids,
+                     _igt=igt_tot):
+            return tflags.run_chain_tflags_real(
+                key, _groups, ps, prior_j, n, map_estimate=map_estimate,
+                jitter=jitter, store_cr=store_cr, prior_idx=prior_idx_j,
+                solver=solver, sids=_sids, igt_total=_igt,
+            )
 
         # --- resume (per-signature checkpoint tag: signature groups run
         # sequentially, so each carries its own iteration cursor) --------
@@ -992,7 +797,7 @@ def _run_tflags_real_batched(jobs, flags_of, prior64, prior_idx_j, niter,
             ck = hio.load_checkpoint(run_dir, tag=ck_tag)
             if ck is not None and (
                 ck["ps"].shape == (n_rows, nfreqs)
-                and ck["extra"].get("engine", engine) == engine
+                and ck["extra"].get("engine", "real") == "real"
                 and ck["extra"].get("nchains", nchains) == nchains
             ):
                 prefix = _load_prefix(
@@ -1000,7 +805,11 @@ def _run_tflags_real_batched(jobs, flags_of, prior64, prior_idx_j, niter,
                 )
                 if prefix is not None:
                     start_iter = ck["iteration"]
-                    ps_state = load_ck(ck["ps"])
+                    x = jnp.asarray(ck["ps"], dtype=jnp.float32)
+                    if pad:
+                        x = jnp.concatenate(
+                            [x, jnp.broadcast_to(x[:1], (pad, nfreqs))], 0)
+                    ps_state = jax.device_put(x, ps_state.sharding)
                     if verbose:
                         print(f"[tflags] resuming group {ck_tag} from "
                               f"iteration {start_iter}")
@@ -1014,7 +823,7 @@ def _run_tflags_real_batched(jobs, flags_of, prior64, prior_idx_j, niter,
             chunk_key = jax.random.fold_in(base_key, 1_000_000 + done)
             ps_state, samples = chunk_fn(chunk_key, ps_state, n)
             host_chunks.append(
-                _to_host(samples, engine, store_cr, 1, n_rows)
+                _to_host(samples, "real", store_cr, 1, n_rows)
             )
             done += n
             if verbose:
@@ -1028,9 +837,9 @@ def _run_tflags_real_batched(jobs, flags_of, prior64, prior_idx_j, niter,
                 write_time += time.perf_counter() - t0
                 if checkpoint and run_dir is not None:
                     hio.save_checkpoint(
-                        run_dir, iteration=done, ps=save_ps(ps_state),
+                        run_dir, iteration=done, ps=_host(ps_state, 0)[:n_rows],
                         key_data=jax.random.key_data(base_key),
-                        extra={"engine": engine, "nchains": nchains,
+                        extra={"engine": "real", "nchains": nchains,
                                "tflags": True},
                         tag=ck_tag,
                     )
@@ -1058,29 +867,25 @@ def _run_tflags_real_batched(jobs, flags_of, prior64, prior_idx_j, niter,
         "niter": niter,
         "start_iter": min(start_iters) if start_iters else 0,
         "batch": nbl * nchains,
-        "engine": engine,
+        "engine": "real",
     }
     return results, timings
 
 
 def _run_baselines_tflags(jobs, ps_prior, niter, *, seed, nchains,
                           write_niter, map_estimate, store_cr, jitter,
-                          engine, solver, warm_ns=0, drift_max=0.6,
-                          verbose=False,
+                          engine, solver, verbose=False,
                           global_baseline_ids=None, use_mesh=True,
                           mesh_devices=None, run_dir=None, checkpoint=True,
                           resume=False, process_id=0, num_processes=1):
     """Grouped time-dependent-flags path (models/tflags.py). On the real
-    and megachain engines, baselines sharing a flag SIGNATURE — identical
+    engine, baselines sharing a flag SIGNATURE — identical
     (Ntimes, Nfreqs) flag arrays, hence identical time-group structure —
     are batched into one (baseline x chain) run with per-row
     composition-invariant PRNG streams (sids), so the replicated scaling
     fixture and real arrays with a common RFI mask scale like the plain
     path instead of a per-baseline Python loop. Distinct signatures run as
-    separate batched groups. The megachain engine executes each signature
-    with the grouped kernel (models/megachain.TflagsMegaSetup: chain-major
-    (chain, time-group) rows, pooled bandpower conditional) — tflags at
-    full megachain speed. The complex engine keeps the per-baseline
+    separate batched groups. The complex engine keeps the per-baseline
     loop (x64 correctness tier). The reference collapses time-dependent
     flags entirely (run-hydra-pspec.py:541 FIXME)."""
     from .models import tflags
@@ -1095,13 +900,12 @@ def _run_baselines_tflags(jobs, ps_prior, niter, *, seed, nchains,
                 if job.flags_tf is not None
                 else np.zeros(job.d.shape, dtype=bool))
 
-    if engine in ("real", "megachain"):
+    if engine == "real":
         return _run_tflags_real_batched(
             jobs, _flags_of, prior64, prior_idx_j, niter, base_key,
             nchains=nchains, write_niter=write_niter,
             map_estimate=map_estimate, store_cr=store_cr, jitter=jitter,
-            solver=solver, engine=engine,
-            warm_ns=warm_ns, drift_max=drift_max, verbose=verbose,
+            solver=solver, verbose=verbose,
             global_baseline_ids=global_baseline_ids, use_mesh=use_mesh,
             mesh_devices=mesh_devices, run_dir=run_dir,
             checkpoint=checkpoint, resume=resume,

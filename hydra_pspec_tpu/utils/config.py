@@ -7,13 +7,17 @@ from pathlib import Path
 from typing import Optional
 
 import numpy as np
-import yaml
+
+from .. import device
+
+# keys earlier versions accepted for a kernel this version removed
+_REMOVED_KEYS = ("warm_ns", "drift_max")
 
 
 @dataclass
 class RunConfig:
     """Mirrors the reference's ~25 driver flags (run-hydra-pspec.py:39-239).
-    Extra TPU-native knobs are grouped at the bottom."""
+    Knobs the reference does not have are grouped at the bottom."""
 
     file_paths: list = field(default_factory=list)
     ant_str: str = "cross"
@@ -43,35 +47,45 @@ class RunConfig:
     dirname: Optional[str] = None
     clobber: bool = False
     write_Niter: int = 100
-    # --- TPU-native extensions -------------------------------------------
+    # --- extensions -----------------------------------------------------
     nchains: int = 1          # independent Gibbs chains per baseline
     time_flags: bool = False  # per-time flag patterns (reference FIXME :541)
-    precision: str = "auto"   # auto: x64 on CPU (parity), x32 on TPU
-                              # (the TPU backend has no f64/complex ALU)
+    precision: str = "auto"   # "auto" | "x32" | "x64"; auto: x64 on the
+                              # CPU (parity), x32 on an accelerator
     store_cr: bool = True     # materialize per-iteration signal CRs
     resume: bool = False      # resume from checkpoint.npz if present
     checkpoint_Niter: int = 0  # 0 = checkpoint every write_Niter
     jitter: float = 0.0       # Cholesky diagonal jitter (f32 robustness)
-    engine: str = "auto"      # "auto" | "megachain" (TPU max-throughput,
-                              # K iters/kernel) | "mega" (fused single-step)
-                              # | "real" (TPU f32 pairs) | "complex" (x64
-                              # parity); auto = megachain on TPU, complex
-                              # under x64, real elsewhere
-    solver: str = "auto"      # "auto" | "pallas" | "chol" | "recinv"
-    warm_ns: int = 3          # megachain: Newton-Schulz inverse-refresh steps
-    drift_max: float = 0.6    # megachain: max rel. ps move for warm start
+    engine: str = "auto"      # "auto" | "real" (f32 pairs) | "complex"
+                              # (x64 parity); auto = complex under x64,
+                              # real otherwise
+    solver: str = "auto"      # "auto" | "chol" | "recinv" (real engine)
     profile_dir: Optional[str] = None  # capture a jax.profiler trace of one
                               # sampling chunk into this directory (the
                               # SURVEY §5.1 tracing-tier equivalent)
 
+    def __post_init__(self):
+        device.check_engine(self.engine)
+        device.check_solver(self.solver)
+        device.check_precision(self.precision)
+
     @classmethod
     def from_yaml(cls, path, **overrides):
+        """Needs ``pyyaml``, imported here so that the rest of the package
+        runs without it."""
+        import yaml
+
         with open(path) as f:
             raw = yaml.safe_load(f) or {}
         return cls.from_dict(raw, base_dir=Path(path).parent, **overrides)
 
     @classmethod
     def from_dict(cls, raw: dict, base_dir=None, **overrides):
+        removed = sorted(set(raw) & set(_REMOVED_KEYS))
+        if removed:
+            raise ValueError(
+                f"Config keys {removed} were removed with the kernel they "
+                "tuned; delete them")
         known = {f.name for f in fields(cls)}
         unknown = set(raw) - known
         if unknown:

@@ -46,13 +46,15 @@ def write_args_json(out_dir, args_dict):
 
 def write_timings_json(
     out_dir, *, num_ranks, num_baselines, load_data, scatter, process,
-    barrier, total, write_data,
+    barrier, total, write_data, engine,
 ):
-    """Exact reference schema (run-hydra-pspec.py:570-581): rank_0_timers
-    plus gathered per-rank write timings."""
+    """The reference schema (run-hydra-pspec.py:570-581): rank_0_timers
+    plus gathered per-rank write timings, and the sampling engine that
+    ran (an extra key its plotter ignores)."""
     timings = {
         "num_ranks": num_ranks,
         "num_baselines": num_baselines,
+        "engine": engine,
         "rank_0_timers": {
             "load_data": load_data,
             "scatter": scatter,

@@ -1,10 +1,14 @@
 #!/bin/bash
-# Multi-host strong-scaling sweep driver — the TPU-native equivalent of the
+# Multi-process strong-scaling sweep driver — the equivalent of the
 # reference's SLURM harness (scripts/scaling_tests/create_jobscript.sh +
 # jobscript.sh.template: mpirun over rank counts). Here each sweep point
 # launches N jax.distributed processes of the CLI; on one machine they talk
-# over localhost (the CI "fake cluster"), on a real pod slice set HOSTS or
-# submit jobscript.slurm.template instead.
+# over localhost, across nodes submit jobscript.slurm.template instead.
+#
+# One process per accelerator: a JAX process reserves most of a GPU's
+# memory, so N processes on one host each get their own card
+# (CUDA_VISIBLE_DEVICES=p, set when nvidia-smi lists at least N cards) or
+# run on the CPU (JAX_PLATFORMS=cpu) — never N processes on one card.
 #
 # Usage:
 #   scripts/scaling_tests/launch_scaling_sweep.sh DATA_DIR OUT_DIR "1 2 4"
@@ -14,7 +18,7 @@
 #   third arg: process counts to sweep
 #
 # After the sweep, the REFERENCE's plotter consumes the results unmodified:
-#   python /root/reference/scripts/scaling_tests/plot_speed_up.py \
+#   python <reference>/scripts/scaling_tests/plot_speed_up.py \
 #       --results_dir OUT_DIR --timer process --reference_nranks 1
 set -euo pipefail
 
@@ -43,6 +47,8 @@ run_args=(
 # are meaningless.
 CPUS_PER_PROC=${CPUS_PER_PROC:-0}
 
+NGPU=$(nvidia-smi -L 2>/dev/null | grep -c '^GPU' || true)
+
 for n in $COUNTS; do
   out="$OUT_DIR/n$n"
   mkdir -p "$out"
@@ -60,7 +66,12 @@ for n in $COUNTS; do
       hi=$((lo + CPUS_PER_PROC - 1))
       pin=(taskset -c "$lo-$hi")
     fi
-    env PYTHONPATH="$REPO${PYTHONPATH:+:$PYTHONPATH}" \
+    if [ "$NGPU" -ge "$n" ]; then
+      dev=(CUDA_VISIBLE_DEVICES="$p")
+    else
+      dev=(JAX_PLATFORMS=cpu)
+    fi
+    env PYTHONPATH="$REPO${PYTHONPATH:+:$PYTHONPATH}" "${dev[@]}" \
       "${pin[@]}" \
       python -m hydra_pspec_tpu.cli.run "${run_args[@]}" \
       --out_dir "$out" --dirname res --clobber \

@@ -3,7 +3,7 @@ hydra-pspec's Gibbs step (see /root/reference/hydra_pspec/pspec.py), written
 independently from the math for use as a test oracle and as the CPU
 baseline for benchmarking. Deliberately mirrors the reference's algorithmic
 choices (dense block A, sqrtm, per-time CG with pinv preconditioner) rather
-than our TPU formulation, so agreement between the two is meaningful.
+than our formulation, so agreement between the two is meaningful.
 """
 import numpy as np
 import scipy.linalg
@@ -21,6 +21,15 @@ def covariance_from_pspec(ps, F):
     return F.conj().T @ np.diag(ps).astype(complex) @ F
 
 
+def psd_sqrt(m):
+    """Principal square root of a Hermitian PSD matrix — what
+    ``scipy.linalg.sqrtm`` returns for one, but through ``eigh``: sqrtm's
+    Schur recurrence divides 0 by 0 when two eigenvalues are zero, as a
+    flag-masked Ni has, and some SciPy versions return NaN there."""
+    vals, vecs = np.linalg.eigh(m)
+    return (vecs * np.sqrt(np.clip(vals, 0.0, None))) @ vecs.conj().T
+
+
 def build_matrices(w, signal_S, Ninv, fgmodes):
     """Reference pspec.py:325-374 semantics: operators + block A + pinv."""
     nfreqs = signal_S.shape[0]
@@ -28,7 +37,7 @@ def build_matrices(w, signal_S, Ninv, fgmodes):
         Ninv = np.diag(Ninv)
     Sh = scipy.linalg.sqrtm(signal_S)
     Ni = w[:, None] * Ninv * w[None, :]
-    Nih = scipy.linalg.sqrtm(Ni)
+    Nih = psd_sqrt(Ni)
     nparams = nfreqs + fgmodes.shape[1]
     A = np.zeros((nparams, nparams), dtype=complex)
     A[:nfreqs, :nfreqs] = np.eye(nfreqs) + signal_S @ Ni

@@ -1,10 +1,10 @@
 """Real-pair estimator tier: on-device twins of LSSA/OQE/DPSS built on
 ops/cplx (no complex dtypes anywhere in the traced program), pinned
 against the complex x64 implementations at f64 precision and verified
-complex-free by jaxpr inspection (the TPU backend constraint).
+complex-free by jaxpr inspection.
 
 VERDICT r2 item 6: the reference estimators are CPU-only
-(hydra_pspec/lssa.py:95, oqe.py:130, dpss.py:7); these run on TPU.
+(hydra_pspec/lssa.py:95, oqe.py:130, dpss.py:7); these run on the device.
 """
 import jax
 import jax.numpy as jnp
@@ -32,8 +32,8 @@ def tonp(c: C):
 
 
 def assert_complex_free(fn, *args):
-    """The whole traced program must contain no complex avals — the
-    property that lets it run on the complex-free TPU backend."""
+    """The whole traced program must contain no complex avals — it runs
+    in float32 real arithmetic only."""
     jaxpr = jax.make_jaxpr(fn)(*args)
     for eqn in jaxpr.jaxpr.eqns:
         for v in list(eqn.invars) + list(eqn.outvars):
@@ -184,7 +184,7 @@ class TestDpssRP:
 
 
 def test_rp_tier_runs_in_float32():
-    """The production dtype path (what the TPU actually executes)."""
+    """The production dtype path (float32 on the device)."""
     n = 16
     d = cpair(crandn(n), jnp.float32)
     invcov = cpair(np.linalg.inv(hermitian(n)), jnp.float32)

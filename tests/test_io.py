@@ -86,9 +86,8 @@ def test_config_rejects_unknown_keys(tmp_path):
 def test_scaling_fabricator_and_multibaseline_cli(tmp_path):
     """Fabricate 3 identical baselines, run the CLI on them, and use the
     identical-results property as the correctness oracle (the reference's
-    scaling-fixture methodology, scaling_tests_README.md:53-58)."""
-    if not Path("/root/reference/test_data").exists():
-        pytest.skip("no reference test data")
+    scaling-fixture methodology, scaling_tests_README.md:53-58), on the
+    seeded baseline the fabricator draws without the reference's data."""
     env_root = tmp_path / "sd"
     subprocess.run(
         [sys.executable, "scripts/make_scaling_data.py", "--n", "3",

@@ -168,11 +168,11 @@ def test_production_real_engine_passes_oracle_gate():
     r4 item 8): the real (chol) engine, 4 chains x 1600 iters on the
     bundled EoR+FG data, must pass oracle_acceptance against the committed
     long-run oracle posterior — the same gate scripts/validate_posterior.py
-    applies to the TPU megachain engine on hardware. ~35 s on CPU.
+    applies to long runs. ~35 s on CPU.
 
     The split-R-hat <= 1.1 gate is NOT applied here: at this chain length
-    the delay-0 prior-window bins (ESS ~ 4) haven't mixed; the long
-    hardware runs in validate_posterior.json cover that gate. The oracle
+    the delay-0 prior-window bins (ESS ~ 4) haven't mixed; long runs of
+    scripts/validate_posterior.py cover that gate. The oracle
     z-comparison is ESS-aware, so those bins carry honest MC error.
     """
     import json
@@ -196,8 +196,8 @@ def test_production_real_engine_flagged_passes_oracle_gate():
     """The in-painting branch under the same in-suite oracle gate: the
     real engine with the oracle's committed RFI flag pattern (9 of 120
     channels) against the flagged oracle case. Covers the flagged solve
-    + masked-chi convention end-to-end in CI (~60 s on CPU); the hardware
-    twin is validate_posterior.json's tpu_megachain_flagged entry."""
+    + masked-chi convention end-to-end in CI (~60 s on CPU); long runs use
+    scripts/validate_posterior.py --flag_channels."""
     import json
 
     from hydra_pspec_tpu.utils.mcstats import (compare_to_oracle,

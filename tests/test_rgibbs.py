@@ -1,6 +1,8 @@
-"""Real-pair (TPU) engine tests: exact agreement with the complex engine
-at float64, plus the real-pair primitive layer against numpy complex."""
+"""Real-pair engine tests: exact agreement with the complex engine at
+float64, the real-pair primitive layer against numpy complex, the XLA
+solvers at the engine's widths, and full-precision products."""
 import jax
+import jax.extend
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -254,3 +256,97 @@ class TestRecursiveInverse:
         ref_ = cplx.to_numpy(s64)
         err = np.abs(cplx.to_numpy(s32) - ref_).max() / np.abs(ref_).mean()
         assert err < 1e-3, err
+
+
+def _gcr_like_system(n, rng):
+    """An HPD matrix shaped like the engine's system I + D P D: bandpower
+    scaling D over ~4 decades and a dense HPD noise term."""
+    x = (rng.standard_normal((n, n)) + 1j * rng.standard_normal((n, n)))
+    p = x @ x.conj().T / n
+    d = np.sqrt(np.logspace(-2, 2, n))
+    return np.eye(n) + d[:, None] * p * d[None, :]
+
+
+@pytest.mark.parametrize("solver", ["chol", "recinv"])
+@pytest.mark.parametrize("n", [16, 120, 128])     # embedded 32 / 240 / 256
+@pytest.mark.parametrize("k", [1, 203])
+def test_xla_solvers_match_numpy(solver, n, k):
+    """Both XLA Hermitian solves against numpy complex128: exact to
+    roundoff at float64, and within 1e-4 (norm-wise) at float32."""
+    rng = np.random.default_rng(n * 1000 + k)
+    m = _gcr_like_system(n, rng)
+    b = rng.standard_normal((n, k)) + 1j * rng.standard_normal((n, k))
+    want = np.linalg.solve(m, b)
+    solve = {"chol": cplx.hermitian_solve,
+             "recinv": cplx.hermitian_solve_recinv}[solver]
+    for dtype, tol in ((jnp.float64, 1e-9), (jnp.float32, 1e-4)):
+        got = cplx.to_numpy(solve(cplx.from_numpy(m, dtype),
+                                  cplx.from_numpy(b, dtype)))
+        err = np.linalg.norm(got - want) / np.linalg.norm(want)
+        assert err < tol, (dtype, err)
+
+
+def _dot_precisions(jaxpr):
+    """Precision configs of every dot_general in a jaxpr, sub-jaxprs
+    (scan, cond, pjit, custom rules) included."""
+    out = []
+    for eqn in jaxpr.eqns:
+        if eqn.primitive.name == "dot_general":
+            out.append(eqn.params["precision"])
+        for v in eqn.params.values():
+            for sub in (v if isinstance(v, (tuple, list)) else (v,)):
+                if isinstance(sub, jax.extend.core.ClosedJaxpr):
+                    out += _dot_precisions(sub.jaxpr)
+                elif isinstance(sub, jax.extend.core.Jaxpr):
+                    out += _dot_precisions(sub)
+    return out
+
+
+@pytest.mark.parametrize("solver", ["chol", "recinv"])
+@pytest.mark.parametrize("flagged", [False, True])
+def test_every_product_is_full_precision(solver, flagged):
+    """No dot_general of the Gibbs step runs at default precision — on a
+    GPU that is TF32, ~1e-3 per product, which the solve amplifies."""
+    d, w, fg, ninv, ps, prior = make_problem()
+    if not flagged:
+        w = np.ones_like(w)
+    ops = rgibbs.build_chain_operators(d, w, fg, ninv, dtype=jnp.float32)
+    closed = jax.make_jaxpr(
+        lambda k, p: rgibbs.gibbs_step(
+            k, p, ops, jnp.asarray(prior, jnp.float32), solver=solver,
+            all_unflagged=not flagged)
+    )(jax.random.key(0), jnp.asarray(ps, jnp.float32)[None])
+    precisions = _dot_precisions(closed.jaxpr)
+    assert len(precisions) >= 10
+    highest = jax.lax.Precision.HIGHEST
+    assert all(p == (highest, highest) for p in precisions), precisions
+
+
+def test_chi_unbiased_with_bright_foregrounds():
+    """With foreground amplitudes ~1e3 x the noise scale, a float32
+    product of Fg @ amps inside the residual would plant a deterministic
+    error ~1e-5 |FG| into the noise-scale residual (chi^2 off by ~0.5%).
+    The engine FG-deflates (d - Fg a0 host-side in float64, matmuls on the
+    amplitude deviation only): its float32 mean chi^2 must match float64
+    to well under that bias, given identical fluctuation draws."""
+    ntimes, nfreqs, nmodes = 24, 16, 3
+    fg = np.linalg.qr(crandn(nfreqs, nmodes))[0]
+    amps_true = crandn(ntimes, nmodes) * 3e3
+    d = amps_true @ fg.T + crandn(ntimes, nfreqs) * 2.0 \
+        + crandn(ntimes, nfreqs)
+    w = np.ones(nfreqs)
+    ninv = np.ones(nfreqs)
+    ps = np.abs(RNG.standard_normal(nfreqs)) * 4.0 + 0.1
+    oa = to_delay(crandn(ntimes, nfreqs))[None]
+    ob = crandn(1, ntimes, nfreqs)
+
+    def mean_chi(dtype):
+        ops = rgibbs.build_chain_operators(d, w, fg, ninv, dtype=dtype)
+        sig, amps, _ = rgibbs.gcr_solve(
+            ops, jnp.asarray(ps, dtype)[None], cplx.from_numpy(oa, dtype),
+            cplx.from_numpy(ob, dtype), solver="chol")
+        resid = ops.d_w - (sig + cplx.matmul(amps, rgibbs._t(ops.fg)))
+        return float(jnp.mean(resid.abs2() * ops.ninv_full_diag[:, None, :]))
+
+    ref_chi = mean_chi(jnp.float64)
+    assert abs(mean_chi(jnp.float32) - ref_chi) / ref_chi < 5e-4

@@ -110,14 +110,10 @@ def test_real_engine_grouped_matches_complex():
     assert np.abs(got - want).max() / denom < 5e-4
 
 
-@pytest.mark.parametrize("engine", ["complex", "real", "mega", "megachain"])
+@pytest.mark.parametrize("engine", ["complex", "real"])
 def test_runner_tflags_path(engine, tmp_path):
     """run_baselines dispatches jobs carrying flags_tf through the grouped
-    path and writes complete reference-named outputs. The mega engine
-    routes to the REAL grouped path (only megachain has a grouped kernel;
-    demoting to 'mega' used to fall into the x64 complex branch the TPU
-    backend cannot run); megachain runs the grouped kernel DIRECTLY
-    (interpret mode off-TPU)."""
+    path and writes complete reference-named outputs."""
     from hydra_pspec_tpu.runner import BaselineJob, run_baselines
 
     d, flags, fg, ninv, _ = make_problem(ntimes=12)
@@ -132,10 +128,7 @@ def test_runner_tflags_path(engine, tmp_path):
         engine=engine, use_mesh=False,
     )
     assert len(results) == 1
-    if engine == "mega":
-        assert timings["engine"] == "real"
-    if engine == "megachain":
-        assert timings["engine"] == "megachain"
+    assert timings["engine"] == engine
     r = results[0]
     assert r.signal_ps.shape == (niter, d.shape[1])
     assert r.signal_cr.shape == (niter,) + d.shape
@@ -335,3 +328,62 @@ def test_tflags_resume_equivalence(tmp_path):
     for i in range(2):
         sub = sorted((part_dir / f"0-{i+1}").rglob("dps-eor.npy"))
         assert sub and all(np.load(p).shape[0] == 8 for p in sub)
+
+
+def test_tflags_real_engine_uses_pooled_alpha_table():
+    """Regression for the pooled-conditional table bug: with unequal
+    groups and a bounded prior bin, the real-engine tflags draw must use
+    alpha + 1 = Ntimes_TOTAL (not group 0's table). Pinned by re-deriving
+    the draw with the step's own key derivation."""
+    from hydra_pspec_tpu.ops.invgamma import (make_invgamma_table,
+                                              sample_bandpowers_from_beta)
+
+    rng = np.random.default_rng(77)
+    ntimes, nf = 12, 16
+    d = (rng.standard_normal((ntimes, nf))
+         + 1j * rng.standard_normal((ntimes, nf))) / np.sqrt(2) * 2.0
+    fg = (rng.standard_normal((nf, 2))
+          + 1j * rng.standard_normal((nf, 2))) / np.sqrt(2)
+    ninv = np.abs(rng.standard_normal(nf)) + 1.0
+    flags_tf = np.zeros((ntimes, nf), dtype=bool)
+    flags_tf[7:, 3] = True          # two groups of 7 and 5 times
+    groups = tflags.build_grouped_operators_real(d, flags_tf, fg, ninv)
+    prior = np.zeros((2, nf), dtype=np.float32)
+    prior[0, 5] = 300.0
+    prior[1, 5] = 0.5
+    prior_j = jnp.asarray(prior)
+    ps0 = jnp.asarray(
+        np.abs(rng.standard_normal((1, nf))) * 10.0 + 0.5, jnp.float32)
+
+    key = jax.random.key(3)
+    igt_tot = make_invgamma_table(ntimes)
+    ps_new, _ = tflags.gibbs_step_tflags_real(
+        key, ps0, groups, prior_j, igt_total=igt_tot)
+
+    # the step's bandpower key for stream id 0
+    k_ps = jax.random.fold_in(jax.random.fold_in(key, 0), 999_983)
+    # Gamma(alpha_total) variates of that stream, from a unit-beta draw
+    probe = sample_bandpowers_from_beta(
+        k_ps, jnp.ones((nf,), jnp.float32), ntimes,
+        jnp.zeros((2, nf), jnp.float32), None, None)
+    gam = 1.0 / probe
+    # beta from the free-bin identity ps = beta / gam; the prior bin's
+    # beta comes from a zero-prior twin of the same step (identical
+    # streams). Everything stays float32: the in-step uniform stream is
+    # drawn at beta.dtype, so an accidental float64 would change the draw.
+    ps_free, _ = tflags.gibbs_step_tflags_real(
+        key, ps0, groups, jnp.zeros_like(prior_j), igt_total=igt_tot)
+    beta = jnp.asarray(np.asarray(ps_new[0] * gam), jnp.float32)
+    beta5 = jnp.float32(float(ps_free[0, 5]) * float(gam[5]))
+    ps_wrong = sample_bandpowers_from_beta(
+        k_ps, beta.at[5].set(beta5), ntimes, prior_j,
+        None, groups[0].ops.igt)            # group 0's table
+    ps_right = sample_bandpowers_from_beta(
+        k_ps, beta.at[5].set(beta5), ntimes, prior_j, None, igt_tot)
+    # the step must agree with the pooled-alpha table draw...
+    np.testing.assert_allclose(
+        float(ps_new[0, 5]), float(ps_right[5]), rtol=1e-5)
+    # ...and the group-0 table (alpha = first group's times) must give a
+    # materially different value — i.e. the old wiring was a real bug
+    assert abs(float(ps_wrong[5]) - float(ps_right[5])) > 1e-3 * abs(
+        float(ps_right[5]))
